@@ -1,0 +1,1 @@
+"""Sparse products and the hand-written CUDA kernels of the PyTorch port."""

@@ -6,11 +6,13 @@ each counterpart is found where the JAX one is.  It imports ``torch`` and
 never ``jax``.  Every operator holds its tensors on one device, and the
 vectors of a solve lie on that device too.
 
-This slice ports the single right-hand-side ``solve()`` for CG and
-Jacobi-PCG: the DIA ``BandedOperator`` with the whole-solve CUDA kernels
-that replace the TPU's ``pallas_cg_dia`` and ``pallas_pcg_dia``, the plain
-engine (``solvers/real.py``) for every other operator, ``DenseOperator``,
-``MatrixFreeOperator`` and the matrix-free ``Laplacian3DOperator``.  The
+The port so far solves with CG and Jacobi-PCG: ``solve()`` for one
+right-hand side, ``solve_batched()`` for an (nrhs, n) stack and
+``solve_sequence()`` for a chain of dependent solves.  On the DIA
+``BandedOperator`` they run whole-solve CUDA kernels that replace the
+TPU's ``pallas_cg_dia``, ``pallas_pcg_dia`` and their batched forms; every
+other operator (``DenseOperator``, ``MatrixFreeOperator``, the matrix-free
+``Laplacian3DOperator``) runs the plain engine (``solvers/real.py``).  The
 CUDA kernels are built with ``nvcc`` at their first use.
 """
 
@@ -24,11 +26,14 @@ from .operators import (
     make_sparse_operator,
 )
 from .solve import (
+    BATCHED_METHODS,
     BLOCK_METHODS,
     COMPLEX_METHODS,
     REAL_METHODS,
     canonical_method,
     solve,
+    solve_batched,
+    solve_sequence,
 )
 from .precond import JacobiPreconditioner
 from .parallel import Laplacian3DOperator
@@ -47,10 +52,13 @@ __all__ = [
     "aslinearoperator",
     "make_sparse_operator",
     "solve",
+    "solve_batched",
+    "solve_sequence",
     "canonical_method",
     "REAL_METHODS",
     "COMPLEX_METHODS",
     "BLOCK_METHODS",
+    "BATCHED_METHODS",
     "JacobiPreconditioner",
     "Laplacian3DOperator",
     "LcgError",

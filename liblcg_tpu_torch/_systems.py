@@ -7,6 +7,8 @@ only, private).
 - :func:`laplacian3d_dia`: the 7-point Dirichlet Laplacian of
   ``Laplacian3DOperator`` in DIA form, built directly (the COO route costs
   ~15 M triplets through ``np.add.at`` at 128^3).
+- :func:`rhs_stack`: a stack of right-hand sides that are not scalings
+  of one another, with a zero row.
 - :func:`spd_dense`: a dense SPD system by normal equations (the
   reference's sample1 recipe).
 """
@@ -66,6 +68,18 @@ def laplacian3d_dia(nz: int, ny: int, nx: int, dtype=np.float64):
     for d, o in enumerate(offsets):
         diag_vals[d] = 6.0 if o == 0 else np.where(rules[o], -1.0, 0.0)
     return np.asarray(offsets, dtype=np.int64), diag_vals
+
+
+def rhs_stack(n: int, nrhs: int, seed: int = 0):
+    """An (nrhs, n) stack of right-hand sides whose systems stop at
+    different iterations: ones, then a zero row (ALREADY_OPTIMIZED at
+    t = 0), then rows uniform in [-1, 1) from ``seed``."""
+    rng = np.random.default_rng(seed)
+    B = np.empty((nrhs, n))
+    B[0] = 1.0
+    B[1:2] = 0.0
+    B[2:] = rng.uniform(-1.0, 1.0, size=(max(nrhs - 2, 0), n))
+    return B
 
 
 def spd_dense(n: int = 80, seed: int = 42):

@@ -28,6 +28,9 @@ class LinearOperator:
     shape: Tuple[int, int]
     dtype: torch.dtype
     device: torch.device
+    #: True when ``mv`` also takes an (nrhs, n) stack, row by row in one
+    #: call; the batched engine otherwise applies ``mv`` to each row.
+    takes_stack: bool = False
 
     def mv(self, x):
         raise NotImplementedError
@@ -70,7 +73,10 @@ class LinearOperator:
 
 
 class DenseOperator(LinearOperator):
-    """Dense matrix operator; the product is ``torch.matmul``."""
+    """Dense matrix operator; the product is ``torch.matmul``.  ``mv`` takes
+    a vector or an (nrhs, n) stack."""
+
+    takes_stack = True
 
     def __init__(self, A, *, device=None):
         self.A = torch.as_tensor(A, device=device)
@@ -79,7 +85,7 @@ class DenseOperator(LinearOperator):
         self.device = self.A.device
 
     def mv(self, x):
-        return self.A @ x
+        return self.A @ x if x.ndim == 1 else x @ self.A.mT
 
     def rmv(self, x):
         return self.A.T @ x
@@ -102,7 +108,9 @@ class BandedOperator(LinearOperator):
     (duplicates summed).  ``offsets`` is a sorted tuple of ints and
     ``diag_vals`` a (D, n_rows) tensor with ``diag_vals[d, i] =
     A[i, i + offsets[d]]``.  The CUDA kernels of ``ops/cuda_cg.py`` take
-    this storage as it is."""
+    this storage as it is.  ``mv`` takes a vector or an (nrhs, n) stack."""
+
+    takes_stack = True
 
     def __init__(self, n_rows: int, n_cols: int, rows, cols, vals, *,
                  dtype=None, device=None):

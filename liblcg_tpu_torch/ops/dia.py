@@ -2,7 +2,9 @@
 
 PyTorch counterpart of ``liblcg_tpu/ops/dia.py``.  The product pads ``x``
 once and adds one shifted slice per diagonal, over the offsets in sorted
-order, exactly as the JAX version does, so the two round alike.  The
+order, exactly as the JAX version does, so the two round alike.  Both
+products act on the last axis, so an (nrhs, n) stack is multiplied row by
+row in one pass (JAX maps the 1-D product with ``jax.vmap``).  The
 host-side conversion runs once in numpy.
 """
 
@@ -12,6 +14,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def coo_to_dia(
@@ -38,33 +41,29 @@ def coo_to_dia(
     return offsets, diag_vals
 
 
-def _padded(x: torch.Tensor, pad_l: int, pad_r: int) -> torch.Tensor:
-    out = x.new_zeros(pad_l + x.shape[0] + pad_r)
-    out[pad_l : pad_l + x.shape[0]] = x
-    return out
-
-
 def dia_spmv(offsets, diag_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` for DIA storage of an (n, m) matrix (``m = len(x)``)."""
+    """``A @ x`` for DIA storage of an (n, m) matrix, over the last axis of
+    ``x`` (shape (..., m))."""
     n = diag_vals.shape[1]
-    m = x.shape[0]
+    m = x.shape[-1]
     offs = [int(o) for o in offsets]
     pad_l = max(0, max((-o for o in offs), default=0))
     pad_r = max(0, max((n + o - m for o in offs), default=0))
-    x_pad = _padded(x, pad_l, pad_r)
+    x_pad = F.pad(x, (pad_l, pad_r))
     y = None
     for d, o in enumerate(offs):
-        term = diag_vals[d] * x_pad[pad_l + o : pad_l + o + n]
+        term = diag_vals[d] * x_pad[..., pad_l + o : pad_l + o + n]
         y = term if y is None else y + term
     if y is None:
-        y = x.new_zeros(n, dtype=torch.promote_types(diag_vals.dtype, x.dtype))
+        y = x.new_zeros((*x.shape[:-1], n),
+                        dtype=torch.promote_types(diag_vals.dtype, x.dtype))
     return y
 
 
 def dia_spmv_transpose(offsets, diag_vals: torch.Tensor, x: torch.Tensor,
                        n_cols: int, conj: bool = False) -> torch.Tensor:
-    """``A^T @ x`` (or ``A^H @ x``) from the same DIA storage:
-    ``(A^T x)[j] = sum_d v_d[j - o_d] * x[j - o_d]``."""
+    """``A^T @ x`` (or ``A^H @ x``) from the same DIA storage, over the last
+    axis of ``x``: ``(A^T x)[j] = sum_d v_d[j - o_d] * x[j - o_d]``."""
     n = diag_vals.shape[1]
     offs = [int(o) for o in offsets]
     vals = diag_vals.conj() if conj else diag_vals
@@ -72,9 +71,10 @@ def dia_spmv_transpose(offsets, diag_vals: torch.Tensor, x: torch.Tensor,
     pad_r = max(0, max((n_cols - o - n for o in offs), default=0))
     y = None
     for d, o in enumerate(offs):
-        p_pad = _padded(vals[d] * x[:n], pad_l, pad_r)
-        term = p_pad[pad_l - o : pad_l - o + n_cols]
+        p_pad = F.pad(vals[d] * x[..., :n], (pad_l, pad_r))
+        term = p_pad[..., pad_l - o : pad_l - o + n_cols]
         y = term if y is None else y + term
     if y is None:
-        y = x.new_zeros(n_cols, dtype=torch.promote_types(diag_vals.dtype, x.dtype))
+        y = x.new_zeros((*x.shape[:-1], n_cols),
+                        dtype=torch.promote_types(diag_vals.dtype, x.dtype))
     return y

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``Laplacian3DOperator`` in
 ``liblcg_tpu/parallel/stencil.py``: ``(A u)[z,y,x] = 6 u[z,y,x]`` minus
 the six face neighbours, homogeneous Dirichlet boundaries, symmetric
-positive definite.  The sharded classes arrive with the parallel slice.
+positive definite.  ``mv`` takes a vector or an (nrhs, n) stack.  The
+sharded classes arrive with the parallel slice.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ class Laplacian3DOperator(LinearOperator):
     """7-point Laplacian on an (nz, ny, nx) grid, flattened with z slowest
     (row i = z*ny*nx + y*nx + x)."""
 
+    takes_stack = True
+
     def __init__(self, nz: int, ny: int, nx: int, dtype=torch.float32, *,
                  device=None):
         self.grid = (int(nz), int(ny), int(nx))
@@ -29,18 +32,18 @@ class Laplacian3DOperator(LinearOperator):
         self.nnz = 7 * n - 2 * (nx * ny + ny * nz + nz * nx)
 
     def mv(self, x):
-        nz, ny, nx = self.grid
-        p = F.pad(x.reshape(nz, ny, nx), (1, 1, 1, 1, 1, 1))
-        core = p[1:-1, 1:-1, 1:-1]
+        lead = x.shape[:-1]
+        p = F.pad(x.reshape(*lead, *self.grid), (1, 1, 1, 1, 1, 1))
+        core = p[..., 1:-1, 1:-1, 1:-1]
         return (
             6.0 * core
-            - p[:-2, 1:-1, 1:-1]
-            - p[2:, 1:-1, 1:-1]
-            - p[1:-1, :-2, 1:-1]
-            - p[1:-1, 2:, 1:-1]
-            - p[1:-1, 1:-1, :-2]
-            - p[1:-1, 1:-1, 2:]
-        ).reshape(-1)
+            - p[..., :-2, 1:-1, 1:-1]
+            - p[..., 2:, 1:-1, 1:-1]
+            - p[..., 1:-1, :-2, 1:-1]
+            - p[..., 1:-1, 2:, 1:-1]
+            - p[..., 1:-1, 1:-1, :-2]
+            - p[..., 1:-1, 1:-1, 2:]
+        ).reshape(*lead, -1)
 
     def rmv(self, x):
         return self.mv(x)  # symmetric

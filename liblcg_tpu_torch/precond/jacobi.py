@@ -12,7 +12,9 @@ from ..types import as_torch_dtype
 class JacobiPreconditioner(LinearOperator):
     """M^{-1} x = x / diag(A).  Accepts an operator (its ``diagonal()`` is
     taken) or the diagonal itself as a 1-D tensor.  ``inv_diag`` is what
-    the PCG kernel reads."""
+    the PCG kernel reads.  ``mv`` takes a vector or an (nrhs, n) stack."""
+
+    takes_stack = True
 
     def __init__(self, diag_or_operator):
         if isinstance(diag_or_operator, LinearOperator):

@@ -3,7 +3,9 @@
 PyTorch counterpart of ``cg`` and ``pcg`` in ``liblcg_tpu/solvers/real.py``:
 the same recurrences in the same order, run through
 :func:`harness.run_loop`.  Each returns the harness carry, a dict with
-``x``, ``status``, ``t``, ``residual`` and ``trace``.
+``x``, ``status``, ``t``, ``residual`` and ``trace``.  A ``b`` of shape
+(nrhs, n) solves the stack in lockstep through the batched loop; ``A.mv``
+and ``M`` must then take (nrhs, n) stacks.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ def cg(A, b, x0=None, *, params=SolverParams(), monitor=None, trace_len=0):
     lcg.cpp:143-274: one operator product and two reductions per
     iteration, iterating on the gradient g = Ax - b."""
     x = _prep(b, x0)
-    n = b.shape[0]
+    n = b.shape[-1]
     acc = H.acc_dtype(params, b.dtype)
 
     gk = A.mv(x) - b
@@ -35,7 +37,7 @@ def cg(A, b, x0=None, *, params=SolverParams(), monitor=None, trace_len=0):
         gk_mod=H.sq_norm(gk, acc),
         m_mod=torch.clamp(H.sq_norm(x, acc), min=1.0),
         t=0,
-        trace=H.init_trace(trace_len, b.dtype, b.device),
+        trace=H.init_trace(trace_len, b),
     )
 
     def residual_fn(c):
@@ -54,14 +56,15 @@ def cg(A, b, x0=None, *, params=SolverParams(), monitor=None, trace_len=0):
                     m_mod=torch.clamp(H.sq_norm(x, acc), min=1.0))
 
     return H.run_loop(carry, residual_fn=residual_fn, step_fn=step_fn,
-                      x_of=lambda c: c["x"], params=params, monitor=monitor)
+                      x_of=lambda c: c["x"], params=params, monitor=monitor,
+                      batched=b.ndim == 2)
 
 
 def pcg(A, b, x0=None, *, M, params=SolverParams(), monitor=None, trace_len=0):
     """Preconditioned CG (Kaasschieter 1988 alg. 1), reference ``lpcg``
     lcg.cpp:293-434.  ``M`` is an operator or a callable applying M^{-1}."""
     x = _prep(b, x0)
-    n = b.shape[0]
+    n = b.shape[-1]
     acc = H.acc_dtype(params, b.dtype)
     apply_M = M.mv if hasattr(M, "mv") else M
 
@@ -76,7 +79,7 @@ def pcg(A, b, x0=None, *, M, params=SolverParams(), monitor=None, trace_len=0):
         m_mod=torch.clamp(H.sq_norm(x, acc), min=1.0),
         zTr=H.dot_u(zk, rk, acc),
         t=0,
-        trace=H.init_trace(trace_len, b.dtype, b.device),
+        trace=H.init_trace(trace_len, b),
     )
 
     def residual_fn(c):
@@ -96,4 +99,5 @@ def pcg(A, b, x0=None, *, M, params=SolverParams(), monitor=None, trace_len=0):
                     m_mod=torch.clamp(H.sq_norm(x, acc), min=1.0), zTr=zTr1)
 
     return H.run_loop(carry, residual_fn=residual_fn, step_fn=step_fn,
-                      x_of=lambda c: c["x"], params=params, monitor=monitor)
+                      x_of=lambda c: c["x"], params=params, monitor=monitor,
+                      batched=b.ndim == 2)

@@ -117,7 +117,9 @@ class SolveResult:
     """Result of a solve: ``x`` plus 0-d tensors ``status_code`` (int32),
     ``iterations`` (int32) and ``residual``, all on the solve's device, and
     an optional residual ``trace`` (``trace[t]`` is the residual at the top
-    of iteration ``t``; entries past ``iterations`` hold zeros)."""
+    of iteration ``t``; entries past ``iterations`` hold zeros).  For
+    ``solve_batched`` the three are per system, (nrhs,), and the trace is
+    (nrhs, trace_len); ``solve_sequence`` adds a leading step axis."""
 
     __slots__ = ("x", "status_code", "iterations", "residual", "trace")
 
@@ -140,6 +142,11 @@ class SolveResult:
         )
 
     def __repr__(self):
+        if self.status_code.ndim:
+            names = [Status(int(c)).name for c in self.status_code.reshape(-1)]
+            return (f"SolveResult(status={names}, "
+                    f"iterations={self.iterations.reshape(-1).tolist()}, "
+                    f"residual={self.residual.reshape(-1).tolist()})")
         s = Status(int(self.status_code)).name
         return (f"SolveResult(status={s}, iterations={int(self.iterations)}, "
                 f"residual={float(self.residual):.6e})")
